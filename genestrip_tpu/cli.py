@@ -19,7 +19,7 @@ from genestrip_tpu.project import Common, Project
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="genestrip-tpu",
-        description="TPU-native metagenomic k-mer classification engine "
+        description="JAX metagenomic k-mer classification engine "
                     "(Genestrip-compatible projects and goals)")
     ap.add_argument("-v", action="store_true", help="Print version.")
     ap.add_argument("-d", metavar="base dir", default="./data",
@@ -50,8 +50,8 @@ def main(argv=None) -> int:
     if args.v:
         print(f"genestrip-tpu {__version__}")
         return 0
-    # multi-host launch (TPU pods / explicit coordinator env): no-op when
-    # single-process — see parallel/distributed.py
+    # multi-host launch (explicit coordinator env or GENESTRIP_MULTIHOST=1):
+    # no-op when single-process — see parallel/distributed.py
     from genestrip_tpu.parallel import distributed
     distributed.maybe_initialize()
     if not args.project:

@@ -15,7 +15,7 @@ from __future__ import annotations
 from genestrip_tpu.config import KEYS, NOOP_KEYS
 
 # one-line doc per config key (reference semantics per ConfigParams.md;
-# TPU-native keys marked [tpu])
+# keys new in this implementation marked [new])
 KEY_DOCS = {
     "logLevel": "Log level: error, warn, info or trace.",
     "threads": "Worker threads for input parsing/extraction; -1 = number of processors - 1, 0 = synchronous.",
@@ -100,12 +100,12 @@ KEY_DOCS = {
     "krakenBin": "External kraken/krakenuniq binary (parity-test harness).",
     "krakenExecExpr": "Command format string for the external kraken run.",
     "krakenDB": "Database name passed to the external kraken run.",
-    "matchBatchSize": "[tpu] Reads per device batch of the match pipeline.",
-    "dbShard": "[tpu] Shard the k-mer hash over the device mesh: auto (above dbShardMinBytes), on, off.",
-    "dbShardMinBytes": "[tpu] Table size above which auto sharding engages (replication is ~2-3x faster below it).",
-    "dbBuildChunkKMers": "[tpu] Pending k-mers per bulk LCA-update pass.",
-    "dbDeviceUpdate": "[tpu] Run the LCA update on device: auto (by measured d2h bandwidth), on, off.",
-    "dbSaveLookupHash": "[tpu] Persist the derived lookup hash in the final db zip (instant match-time load).",
+    "matchBatchSize": "[new] Reads per device batch of the match pipeline.",
+    "dbShard": "[new] Shard the k-mer hash over the device mesh: auto (above dbShardMinBytes), on, off.",
+    "dbShardMinBytes": "[new] Table size above which auto sharding engages; 0 = a quarter of the smallest device's memory limit (devices that report none replicate).",
+    "dbBuildChunkKMers": "[new] Pending k-mers per bulk LCA-update pass.",
+    "dbDeviceUpdate": "[new] Run the LCA update on device: auto or on (whenever the table is non-empty), off (host path).",
+    "dbSaveLookupHash": "[new] Persist the derived lookup hash in the final db zip (instant match-time load).",
 }
 
 # user-facing goals (ref: Goals.md / GSGoalKey.java); name -> description

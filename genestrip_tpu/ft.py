@@ -5,7 +5,7 @@ Reference equivalents: the `ft` module — finertree/FinerTreeMaker.java (goal
 wiring), finertree/goals/DBQualityCountsGoal.java (the quality scan) and
 finertree/goals/DBQualityCSVGoal.java (the CSV).
 
-TPU redesign: the reference re-reads every genome base-by-base, probes the
+Redesign: the reference re-reads every genome base-by-base, probes the
 store per k-mer and dedups (k-mer, taxid-index) pairs through an XOR bloom
 filter (ft/.../bloom/XORKMerIndexBloomFilter.java). Here regions are
 vectorized into canonical k-mer arrays, looked up in bulk against the sorted

@@ -4,13 +4,13 @@ Most real-world fastq.gz in bioinformatics pipelines (SRA deliveries,
 htslib/samtools outputs) are BGZF: a sequence of independent <=64 KiB gzip
 members, each carrying its compressed size in a 'BC' extra subfield. That
 framing makes the inflate parallelizable — the host input pipeline's only
-hard single-stream ceiling (~1.2M reads/s of plain-gzip inflate measured,
-bench.py) disappears for such files.
+hard single-stream ceiling (plain-gzip inflate) disappears for such files.
 
 The reference has no equivalent (it reads every gzip serially through
-java.util.zip — core io/StreamProvider.java:44-67); this is a TPU-era
-addition: the device consumes tens of millions of reads/s, so the host feed
-needs every core it can use.
+java.util.zip — core io/StreamProvider.java:44-67); this is an addition
+of this implementation: a single inflate stream can feed the device step
+more slowly than it consumes reads, so the host feed uses every core it
+can.
 
 Design: a consumer-side splitter parses block headers (cheap, sequential)
 and submits whole members to a small thread pool — zlib releases the GIL,
@@ -69,8 +69,8 @@ class _BgzfRaw(io.RawIOBase):
     """Raw stream of inflated BGZF bytes, blocks decompressed by a pool.
 
     Members are submitted in groups of `group` (~1 MiB of compressed data
-    per future) — per-member futures measured ~10% slower from Python
-    overhead at the 64 KiB bgzip block size."""
+    per future) — per-member futures add Python overhead at the 64 KiB
+    bgzip block size."""
 
     def __init__(self, stream, threads: int = 3, prefetch: int = 16,
                  group: int = 16):

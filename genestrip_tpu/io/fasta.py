@@ -1,7 +1,7 @@
 """Genome FASTA region iteration for database building.
 
 Reference equivalent: core fasta/AbstractFastaReader.java (event-driven
-region scan: startRegion/infoLine/dataLine/endRegion). The TPU build wants
+region scan: startRegion/infoLine/dataLine/endRegion). The batched build wants
 whole-region byte arrays to run the vectorized k-mer extraction over, so
 regions are yielded as (header, sequence) pairs; very large regions can be
 processed in overlapping chunks by the caller.

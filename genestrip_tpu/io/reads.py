@@ -2,7 +2,7 @@
 
 Reference equivalent: core fastq/AbstractFastqReader.java — its producer
 thread parses reads into pooled byte buffers consumed by matcher threads
-(ref: doReadFastq:288-368, doReadFasta:375-438). The TPU pipeline instead
+(ref: doReadFastq:288-368, doReadFasta:375-438). The batched pipeline instead
 packs reads into fixed-shape batches:
 
   codes   [B, L] uint8 (2-bit code, BAD for non-CGAT/padding)
@@ -123,8 +123,8 @@ class BatchPacker:
                  with_probs: bool = False, long_threshold: int | None = None):
         self.batch_size = batch_size
         self.table = CODE_TABLE_LOWER if lowercase else CODE_TABLE
-        # bytes.translate runs the 256-entry LUT ~5.5x faster than a numpy
-        # uint8 gather (measured 860 MB/s vs 150 MB/s on this host)
+        # bytes.translate runs the 256-entry LUT faster than a numpy uint8
+        # gather
         self.table_bytes = self.table.tobytes()
         self.with_probs = with_probs
         self.long_threshold = long_threshold
@@ -287,8 +287,7 @@ class BatchPacker:
                 # fast path: when all starts are equally strided (fixed-width
                 # descriptors + uniform read length, the common fastq shape)
                 # an as_strided view turns the fetch into one memcpy
-                # (measured 5.7 ms vs 34 ms np.take vs 73-145 ms fancy
-                # indexing per 131k x 192 at this host).
+                # instead of an np.take or a fancy-indexing gather.
                 _, buf, spans, mapped = seg
                 s_s, s_e = spans[2], spans[3]
                 k = len(s_s)
@@ -487,8 +486,8 @@ def parse_reads(stream, packer: BatchPacker, fasta: bool,
 
 def batch_feeder(gen, prefetch: int = 4):
     """Runs a ReadBatch generator on a worker thread with a bounded prefetch
-    queue — the host parse/pack overlaps the device steps (the TPU analog of
-    the reference's producer thread, AbstractFastqReader.java:88-118).
+    queue — the host parse/pack overlaps the device steps (the batched
+    analog of the reference's producer thread, AbstractFastqReader.java:88-118).
     Exceptions propagate to the consumer."""
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     _END = object()

@@ -95,10 +95,9 @@ class StreamingResource:
         if gz:
             # BGZF (bgzip'd) files decompress in parallel — the inflate is
             # the host pipeline's single-stream ceiling (io/bgzf.py). Only
-            # engaged with >2 usable cores: measured on a 2-core host the
-            # pool threads merely contend with the read-ahead + parser
-            # threads (703k vs 763k reads/s), while GzipFile reads BGZF
-            # fine serially.
+            # engaged with >2 usable cores: on a 2-core host the pool
+            # threads merely contend with the read-ahead + parser threads,
+            # while GzipFile reads BGZF fine serially.
             from genestrip_tpu.io.bgzf import is_bgzf_header, open_bgzf
             try:
                 ncpu = len(os.sched_getaffinity(0))
@@ -118,7 +117,7 @@ class ReadAhead:
 
     A daemon thread pulls fixed-size chunks into a bounded queue; zlib
     releases the GIL during decompression, so gzip inflate overlaps the
-    consumer's parsing on another core (the TPU-side replacement for the
+    consumer's parsing on another core (the replacement for the
     reference's dedicated producer thread, ref
     fastq/AbstractFastqReader.java:88-118). Supports read() (any-size
     partial returns) and readline() (for the robust-parser fallback)."""

@@ -28,8 +28,8 @@ from genestrip_tpu.store.hash import lookup_hash
 def filter_step(k: int, nb_bits: int, rows, codes, lengths, thr):
     """thr: [B] int32 acceptance thresholds, precomputed on the host in
     float64 (the ratio threshold is `int(max * posRatioFilter)` in Java
-    double math, ref isAcceptRead — kept off-device so the TPU graph stays
-    32-bit)."""
+    double math, ref isAcceptRead — kept off-device so the device graph
+    stays 32-bit)."""
     hi, lo, clean, exists = window_kmers(codes, lengths, k)
     _, found, _ = lookup_hash(rows, hi, lo, nb_bits=nb_bits)
     contained = jnp.sum((found & clean & exists).astype(jnp.int32), axis=1)

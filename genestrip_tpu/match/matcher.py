@@ -38,13 +38,15 @@ class Matcher:
                  db_md5: str = "", batch_size: int = 4096, max_kmer_res_counts: int = 0,
                  write_all: bool = True, devices=None,
                  shard_db: str | bool = "auto",
-                 shard_db_min_bytes: int = 4 << 30,
+                 shard_db_min_bytes: int = 0,
                  prebuilt_hash=None):
         """devices: device list for data-parallel matching (default: all
-        visible devices; with more than one, batches are sharded over a
-        jax.sharding.Mesh and per-node stats psum-merged — the TPU
-        replacement for the reference's consumer-thread fan-out,
-        ref fastq/AbstractFastqReader.java:88-185)."""
+        local devices; with more than one, batches are sharded over a
+        jax.sharding.Mesh and per-node stats psum-merged — the replacement
+        for the reference's consumer-thread fan-out,
+        ref fastq/AbstractFastqReader.java:88-185).
+        shard_db / shard_db_min_bytes: see parallel/mesh.should_shard_db
+        (0 derives the threshold from the devices' memory)."""
         self.table = table
         self.tree = tree
         self.db_md5 = db_md5
@@ -72,7 +74,7 @@ class Matcher:
         self.long_chunk_windows = 8192
         T = len(tree)
         self.n_nodes = T
-        # local chips only: multi-host runs file-level data parallelism with
+        # local devices only: multi-host runs file-level data parallelism with
         # per-process meshes + an aggregation-time merge (parallel/distributed)
         devices = devices if devices is not None else jax.local_devices()
         self._mesh = mesh_mod.make_mesh(devices) if len(devices) > 1 else None
@@ -88,16 +90,15 @@ class Matcher:
         self._n_table = sa["n"]
         self._anc = jnp.asarray(tree.ancestor_at_depth)
         # sharded-DB mode (SURVEY §5.8): bucket-range-shard the hash rows
-        # over the mesh when the table is too big to replicate per chip
-        # ("auto": above shard_db_min_bytes). Ref role:
-        # store/RadixKMerStore.java:38-88 (radix bits as the shard key).
+        # over the mesh when the table is too big to replicate per device.
+        # Ref role: store/RadixKMerStore.java:38-88 (radix bits as the
+        # shard key).
         nb_rows = int(self._rows.shape[0])
         self.shard_db = bool(
             self._mesh is not None
             and nb_rows % self._n_dev == 0
-            and (shard_db is True or shard_db == "on"
-                 or (shard_db == "auto"
-                     and self._rows.nbytes > shard_db_min_bytes)))
+            and mesh_mod.should_shard_db(shard_db, self._rows.nbytes,
+                                         devices, shard_db_min_bytes))
         if self._mesh is not None:
             repl = NamedSharding(self._mesh, P())
             rows_sh = (NamedSharding(self._mesh, P("reads"))

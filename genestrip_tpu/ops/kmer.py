@@ -2,20 +2,20 @@
 
 The reference rolls one k-mer per base in a scalar loop
 (ref: core util/CGATLongBuffer.java:131-216, match/FastqKMerMatcher.java:345-363).
-On TPU we compute all windows of a (batch of) sequence(s) at once: the straight
-and reverse-complement encodings of every window are sums of k shifted slices
-of the 2-bit code array — k vector ops instead of a scalar rolling loop, fully
-VPU-parallel and with no sequential dependence.
+On the device we compute all windows of a (batch of) sequence(s) at once: the
+straight and reverse-complement encodings of every window are sums of k
+shifted slices of the 2-bit code array — k vector ops instead of a scalar
+rolling loop, elementwise-parallel and with no sequential dependence.
 
 A window's k-mer participates iff the window contains no non-CGAT base; this is
 exactly the reference's semantics, where scanning skips over bad bases and
 counts every window covering a bad base as INVALID
 (ref: match/FastqKMerMatcher.java:345-363,415-417).
 
-Device representation: 62-bit k-mers as (hi, lo) uint32 pairs — TPU-native
-32-bit lanes, no 64-bit emulation on the hot path. The split boundary is clean
-because every base contributes 2 bits at an even shift. Host/golden code uses
-plain uint64.
+Device representation: 62-bit k-mers as (hi, lo) uint32 pairs — 32-bit lanes
+only, so global x64 stays off. The split boundary is clean because every base
+contributes 2 bits at an even shift. Host/golden code uses plain uint64.
+Whether scoped uint64 keys would serve the GPU better is ROADMAP C7.
 """
 
 import jax
@@ -33,8 +33,8 @@ def _bitrev_groups_u64(x: np.ndarray) -> np.ndarray:
     """Reverse the order of the 32 2-bit groups of each uint64 (in place safe).
 
     Written with explicit out= buffers: the naive expression allocated six
-    fresh W-sized temporaries per call (page-fault bound at DB-build sizes;
-    measured 86 -> 52 ms per 4M elements)."""
+    fresh W-sized temporaries per call (page-fault bound at DB-build
+    sizes)."""
     m2 = np.uint64(0x3333333333333333)
     m4 = np.uint64(0x0F0F0F0F0F0F0F0F)
     t = np.bitwise_and(x, m2)
@@ -77,8 +77,8 @@ def window_kmers_np(codes: np.ndarray, k: int):
     b1 = b0[0::2] | (b0[1::2] << 4)
     words = b1.view(np.uint64)
 
-    # index vectors via tile/repeat of the 32-periodic pattern (measured ~10x
-    # cheaper than arange + mask/shift temporaries at this size)
+    # index vectors via tile/repeat of the 32-periodic pattern (cheaper than
+    # arange + mask/shift temporaries at this size)
     nq = (W + 31) >> 5
     q = np.repeat(np.arange(nq, dtype=np.intp), 32)[:W]
     r = np.tile(np.arange(0, 64, 2, dtype=np.uint64), nq)[:W]

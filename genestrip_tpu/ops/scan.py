@@ -1,10 +1,8 @@
 """Compile-friendly 1-D prefix scans.
 
-XLA-TPU compiles a length-N 1-D associative scan into a network whose
-compile time grows superlinearly with N (measured on this toolchain:
-~205 s for one 2M-element cumsum/associative_scan, vs seconds for 2-D
-row scans). The standard two-level decomposition fixes this with identical
-results and (measured) identical runtime:
+A length-N 1-D associative scan can lower to a network whose compile time
+grows superlinearly with N. The standard two-level decomposition bounds the
+network to one row length, with identical results:
 
   1. reshape [N] -> [R, C] and scan each row (axis=1) — a C-length network;
   2. scan the R row-totals (a tiny 1-D scan);

@@ -2,10 +2,10 @@
 
 Reference equivalent: the reference is single-JVM — its "backend" is a
 thread pool + blocking queue (ref: ExecutionContext.java:31-55,
-DefaultExecutionContext.java, SimpleBlockingQueue.java). The TPU-native
-replacement is process-level data parallelism over `jax.distributed`:
+DefaultExecutionContext.java, SimpleBlockingQueue.java). The replacement
+here is process-level data parallelism over `jax.distributed`:
 
-* each host process owns its local chip mesh (`jax.local_devices()`) and an
+* each host process owns its local device mesh (`jax.local_devices()`) and an
   interleaved shard of the input resources (fastq files) — file-level data
   parallelism, embarrassingly parallel like the reference's per-file reader
   fan-out (ref: goals/refseq/FastaReaderGoal.java:101-160);
@@ -21,9 +21,11 @@ replacement is process-level data parallelism over `jax.distributed`:
 * per-read outputs (kraken-style, filtered fastq) stay host-local — each
   process writes the lines of its own resources.
 
-Launch: on TPU pods `jax.distributed.initialize()` auto-detects; elsewhere
-set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID (or their
-GENESTRIP_* equivalents). `maybe_initialize()` is a no-op single-process.
+Launch: set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+(or their GENESTRIP_* equivalents) on every process. GENESTRIP_MULTIHOST=1
+instead leaves the settings to `jax.distributed.initialize()`'s own cluster
+detection (e.g. under a Slurm or MPI launcher). `maybe_initialize()` is a
+no-op single-process.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ _initialized = False
 def maybe_initialize() -> None:
     """jax.distributed.initialize() when a multi-process launch is detected.
 
-    Triggers: GENESTRIP_MULTIHOST=1 (TPU-pod auto-detection) or an explicit
-    coordinator address in the environment. Safe to call more than once.
+    Triggers: an explicit coordinator address in the environment, or
+    GENESTRIP_MULTIHOST=1 (jax.distributed's own cluster detection). Safe
+    to call more than once.
     """
     global _initialized
     if _initialized:

@@ -1,11 +1,11 @@
-"""Multi-chip data-parallel matching over a device mesh.
+"""Multi-device data-parallel matching over a device mesh.
 
 Replaces the reference's single-JVM producer/consumer thread fan-out
 (ref: fastq/AbstractFastqReader.java:88-185, ExecutionContext) with SPMD
 over a jax.sharding.Mesh: read batches are sharded over the batch dimension
 ("reads" axis), the k-mer table and taxonomy arrays are replicated in every
-chip's HBM (Genestrip databases are small by design, ref README.md:39), and
-per-tax-id statistic vectors are merged with psum over ICI. The unique-k-mer
+device's memory (Genestrip databases are small by design, ref README.md:39),
+and per-tax-id statistic vectors are merged with psum. The unique-k-mer
 seen/count vectors are per-shard partial states (position-space partition)
 that are OR/sum-merged host-side at aggregation time (SURVEY.md §5.8).
 
@@ -13,9 +13,9 @@ The Matcher picks this path automatically whenever more than one device is
 visible (genestrip_tpu/match/matcher.py); tests exercise it on a virtual
 8-device CPU mesh and assert shard-merged == single-device for every output.
 
-For databases exceeding HBM, the alternative is range-sharding the sorted
-table over devices with lookups routed by k-mer prefix (the radix bits as
-shard key) — see store/table.py radix layout.
+For databases too large to replicate, the hash rows are bucket-range-sharded
+over the mesh instead (dbShard; store/hash.py lookup_join with `axis`), and
+should_shard_db decides between the two.
 """
 
 from __future__ import annotations
@@ -23,11 +23,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from genestrip_tpu.match.pipeline import (
     MatchConfig, TableSpec, fold_node_state, match_step, node_state_init,
@@ -42,9 +39,43 @@ _SHARDED_OUTS = ("found", "n_win", "class_node", "read_kmers", "tax_err",
                  "stats_ok", "label")
 
 
+# dbShard=auto replicates the hash rows while they take at most this share of
+# the smallest device's memory limit. Derived, not measured: it leaves the
+# rest of each device to the match step's batch working set and to XLA.
+SHARD_MEMORY_FRACTION = 0.25
+
+
 def make_mesh(devices=None, axis: str = "reads") -> Mesh:
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (axis,))
+
+
+def auto_shard_min_bytes(devices) -> int | None:
+    """Table bytes above which dbShard=auto shards the hash rows:
+    SHARD_MEMORY_FRACTION of the smallest device's memory_stats()
+    ["bytes_limit"]. None when any device reports no limit (the CPU
+    backend): no memory size is assumed, and auto replicates."""
+    limits = []
+    for d in devices:
+        stats = d.memory_stats()
+        if not stats or "bytes_limit" not in stats:
+            return None
+        limits.append(int(stats["bytes_limit"]))
+    return int(min(limits) * SHARD_MEMORY_FRACTION) if limits else None
+
+
+def should_shard_db(mode, table_bytes: int, devices,
+                    min_bytes: int = 0) -> bool:
+    """Whether a mesh over `devices` bucket-range-shards the hash rows
+    (config dbShard: "on"/True, "off"/False or "auto"). Under "auto" the
+    rows shard above `min_bytes` (config dbShardMinBytes) or, when that is
+    0, above auto_shard_min_bytes(devices)."""
+    if mode is True or mode == "on":
+        return True
+    if mode != "auto":
+        return False
+    limit = min_bytes or auto_shard_min_bytes(devices)
+    return limit is not None and table_bytes > limit
 
 
 def make_sharded_match_step(mesh: Mesh, cfg: MatchConfig, spec: TableSpec,
@@ -111,12 +142,8 @@ def make_sharded_match_step(mesh: Mesh, cfg: MatchConfig, spec: TableSpec,
         keys.append("label")
     out_specs = {k_: spec_for(k_) for k_ in keys}
 
-    try:
-        fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
-    except TypeError:  # older jax: check_rep instead of check_vma
-        fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_rep=False)
+    fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
+                   out_specs=out_specs, check_vma=False)
     return jax.jit(fn, donate_argnums=(6, 7))
 
 
@@ -171,12 +198,8 @@ def make_sharded_accum_step(mesh: Mesh, cfg: MatchConfig, spec: TableSpec,
                  "nstate": {k: P(axis) for k in node_state_init(1)}}
     if cfg.return_labels:
         out_specs["label"] = P(axis)
-    try:
-        fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
-    except TypeError:  # older jax: check_rep instead of check_vma
-        fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_rep=False)
+    fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
+                   out_specs=out_specs, check_vma=False)
     return jax.jit(fn, donate_argnums=(6, 7, 8))
 
 

@@ -2,8 +2,8 @@
 
 Reference equivalent: core store/Database.java — a zip of the serialized
 store, its bloom pre-filter and a configInfo.properties entry carrying an
-MD5 fingerprint of the database payload (ref: Database.save:201-237). The
-TPU format replaces Java serialization with npz (table) + JSON (taxonomy);
+MD5 fingerprint of the database payload (ref: Database.save:201-237). This
+format replaces Java serialization with npz (table) + JSON (taxonomy);
 there is no bloom pre-filter entry (lookups are batched binary search, and
 a Pallas bloom stage, if added, is derived data). The MD5 is computed over
 the table + taxonomy payloads and stamped into configInfo under the same

@@ -2,12 +2,11 @@
 
 Reference equivalent: the lookup role of store/KMerSortedArray.java:298-349
 (bloom probe + binary search) and store/RadixKMerStore.java:38-88 (radix
-buckets + in-bucket search). On this TPU, XLA row-gathers from HBM cost
-~13 ms per 1M [8]i32 rows regardless of locality (measured,
-scripts/probe_hot.py), so lookup cost is proportional to the number AND
-WIDTH of gathers per query. This layout needs exactly TWO [8]i32 row
+buckets + in-bucket search). This layout needs exactly TWO [8]i32 row
 gathers per lookup (one per bucket choice), with the value index packed
-into the row — ~3.5x cheaper than the radix binary search (5-6 gathers).
+into the row, where a radix binary search needs 5-6 dependent gathers. The
+production batch path (lookup_join below) avoids per-query gathers
+altogether.
 
 Exactness (no false positives) by quotienting:
   * The 64-bit key container (hi, lo) is mixed by a 2-round Feistel
@@ -171,8 +170,7 @@ def _place(b1, b2, nb):
     cuckoo capacity bound, so the walk terminates in a handful of rounds."""
     n = len(b1)
     # int32 throughout: bucket ids < nb <= ~2^27 and entry ids < n < 2^31,
-    # halving the dominant argsort/copy/scatter costs (measured ~1.7x
-    # faster end-to-end on a 16M-key build vs the int64 original)
+    # halving the bytes of the dominant argsort/copy/scatter work
     b1 = b1.astype(np.int32)
     b2 = b2.astype(np.int32)
     bucket_of = np.full(n, -1, np.int32)
@@ -259,15 +257,12 @@ def _place(b1, b2, nb):
 # device lookup — scatter-join (the fast path)
 # ---------------------------------------------------------------------------
 #
-# XLA row-gathers from HBM cost ~13 ns/row on this chip regardless of table
-# size (measured, scripts/probe_hot.py), so the two-gather lookup below runs
-# ~26 ms per 1M queries. The scatter-join inverts the access pattern: instead
+# The scatter-join inverts the two-gather lookup's access pattern: instead
 # of bringing table rows to the queries (random gathers), it delivers the
-# queries TO the table's bucket space with sorts + scatters (both ~free on
-# TPU: 1M x 4 i32 sort = 0.1 ms measured) and resolves all of them in ONE
-# dense elementwise pass over the bucket table. Measured 0.105 ms per 1M
-# queries against a 16M-key table (scripts/probe_r4c_join.py) — ~250x the
-# gather path, with bit-exact results.
+# queries TO the table's bucket space with sorts + scatters and resolves all
+# of them in ONE dense elementwise pass over the bucket table, with results
+# bit-identical to the gather path. Which of the two is faster on the GPU,
+# and at which batch size, is not yet measured (ROADMAP A3).
 #
 # Per call (Q queries, 2 entries each — one per cuckoo bucket choice):
 #   1. entries (bucket, h2, want=rem2<<1|choice, qid) sorted by (bucket, key).
@@ -337,7 +332,6 @@ def lookup_join(rows, q_hi, q_lo, *, nb_bits: int, r_lanes: int = 0,
     h2 = q_hi ^ mix(q_lo, 0x85EBCA6B)
     l2 = q_lo ^ mix(h2, 0x9E3779B1)
     mask = jnp.uint32(nb - 1)
-    empty = jnp.int32((1 << vb) - 1)
     b1 = (l2 & mask).astype(jnp.int32)
     rem2 = l2 >> jnp.uint32(nb_bits)
     g = (h2 * jnp.uint32(0x27D4EB2F)) ^ (rem2 * jnp.uint32(0x165667B1))
@@ -370,8 +364,7 @@ def lookup_join(rows, q_hi, q_lo, *, nb_bits: int, r_lanes: int = 0,
     new_key = (s_b != pb) | (s_h != ph) | (s_w != pw)
     new_bucket = s_b != pb
     pos = jax.lax.broadcasted_iota(jnp.int32, (E, 1), 0).reshape(-1)
-    # two-level scans: 1-D scans of this length compile pathologically
-    # slowly on this toolchain (see ops/scan.py)
+    # two-level scans of this long 1-D array (see ops/scan.py)
     kidx = cumsum_1d(new_key.astype(jnp.int32))
     bstart_k = running_max_1d(jnp.where(new_bucket, kidx, 0))
     rank = kidx - bstart_k
@@ -405,32 +398,8 @@ def lookup_join(rows, q_hi, q_lo, *, nb_bits: int, r_lanes: int = 0,
         sp2 = sc_p[:-1].reshape(nb_local, R)
     sh2 = sc_h[:-1].reshape(nb_local, R)
 
-    # dense pass: [NB, R] scratch lanes vs the 4 slots of each row, as plain
-    # XLA elementwise ops. Decision note (VERDICT r4 item 4): the explicitly
-    # tiled Pallas kernel of this pass (ops/pallas_lookup.py, bit-identical)
-    # LOSES — at the 16M-key bench shape it exceeds the v5e scoped-VMEM
-    # limit (24.2M > 16M stack alloc for the [8.4M, 4] call) and at smaller
-    # shapes it measured no faster than this lowering, which XLA fuses to
-    # ~0.1 ms per 1M queries (9.75 G lookups/s measured end-to-end). The
-    # kernel + its parity test + probe are kept as documentation.
-    fnd = jnp.zeros((nb_local, R), bool)
-    v = jnp.zeros((nb_local, R), jnp.int32)
-    lane = jnp.zeros((nb_local, R), jnp.int32)
-    for j in range(BUCKET):
-        kj = rows[:, j][:, None]
-        pj = jax.lax.bitcast_convert_type(rows[:, BUCKET + j], jnp.uint32)[:, None]
-        vj = (pj & jnp.uint32(empty)).astype(jnp.int32)
-        eqj = ((kj == sh2)
-               & ((pj >> jnp.uint32(vb)).astype(jnp.int32) == sw_probe)
-               & (vj != empty))
-        first = eqj & ~fnd
-        v = jnp.where(first, vj, v)
-        lane = jnp.where(first, j, lane)
-        fnd = fnd | eqj
-    bidx = jax.lax.broadcasted_iota(jnp.int32, (nb_local, R), 0)
-    if bucket_lo is not None:
-        bidx = bidx + bucket_lo      # globalize the slot id
-    slot = bidx * BUCKET + lane
+    fnd, v, slot = dense_pass(rows, sh2, sw_probe, vb=vb,
+                              bucket_lo=bucket_lo)
 
     # scatter back to entry space
     f_flat = fnd.reshape(-1)
@@ -515,6 +484,43 @@ def lookup_join(rows, q_hi, q_lo, *, nb_bits: int, r_lanes: int = 0,
     return (slot_out.reshape(shape), found.reshape(shape), vidx.reshape(shape))
 
 
+def dense_pass(rows, sh2, sw_probe, *, vb: int, bucket_lo=None):
+    """The scatter-join's dense compare: every [NB, R] scratch lane (h2 in
+    sh2, rem2|choice in sw_probe) against the 4 slots of its bucket's row,
+    as plain elementwise XLA ops, which fuse into one pass over the bucket
+    table. A hand-written kernel of it is worth having only if a trace
+    shows this fusion far from the device's memory bandwidth (ROADMAP).
+
+    rows: [NB, 8] int32 (this shard's bucket range when bucket_lo is set).
+    Returns (found bool, vidx int32, slot int32), each [NB, R]."""
+    import jax
+    import jax.numpy as jnp
+
+    nb_local, R = sh2.shape
+    empty = jnp.int32((1 << vb) - 1)
+    with jax.named_scope("dense_pass"):
+        fnd = jnp.zeros((nb_local, R), bool)
+        v = jnp.zeros((nb_local, R), jnp.int32)
+        lane = jnp.zeros((nb_local, R), jnp.int32)
+        for j in range(BUCKET):
+            kj = rows[:, j][:, None]
+            pj = jax.lax.bitcast_convert_type(
+                rows[:, BUCKET + j], jnp.uint32)[:, None]
+            vj = (pj & jnp.uint32(empty)).astype(jnp.int32)
+            eqj = ((kj == sh2)
+                   & ((pj >> jnp.uint32(vb)).astype(jnp.int32) == sw_probe)
+                   & (vj != empty))
+            first = eqj & ~fnd
+            v = jnp.where(first, vj, v)
+            lane = jnp.where(first, j, lane)
+            fnd = fnd | eqj
+        bidx = jax.lax.broadcasted_iota(jnp.int32, (nb_local, R), 0)
+        if bucket_lo is not None:
+            bidx = bidx + bucket_lo      # globalize the slot id
+        slot = bidx * BUCKET + lane
+    return fnd, v, slot
+
+
 # ---------------------------------------------------------------------------
 # device lookup — two-gather (fallback + small-Q path)
 # ---------------------------------------------------------------------------
@@ -531,10 +537,9 @@ def lookup_hash(rows, q_hi, q_lo, *, nb_bits: int, bucket_lo=None):
     index (NB*4 where not found — a dummy scatter target); vidx is -1 where
     not found.
 
-    Queries are flattened internally: a [Q, 8] row-gather lowers to the fast
-    path on TPU, while a [B, W, 8] one triggers a padded-layout blowup
-    (measured ~30x slower). The 4-slot probe is unrolled into elementwise
-    selects — no tiny-trailing-dim ops.
+    Queries are flattened internally to one [Q, 8] row-gather per bucket
+    choice. The 4-slot probe is unrolled into elementwise selects — no
+    tiny-trailing-dim ops.
     """
     import jax
     import jax.numpy as jnp

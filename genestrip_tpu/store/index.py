@@ -2,10 +2,10 @@
 
 Reference equivalent: goals/refseq/BloomIndexGoal.java builds a bloom filter
 over the database k-mers whose tax node is requested (fpp 1e-8 by default),
-serialized as `<project>_index.ser.gz`. The TPU-native index is the *exact*
+serialized as `<project>_index.ser.gz`. This index is the *exact*
 sorted subset of those k-mers, probed with the same vectorized binary-search
 lookup as the main table — no false positives (a strict improvement at the
-same memory order on HBM) and batch-friendly. File format: npz.
+same memory order in device memory) and batch-friendly. File format: npz.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Reference equivalent: core tax/SmallTaxTree.java (compact serializable tree
 holding only required nodes, per-read vote counters, path sums, LCA). The
-TPU redesign flattens the tree into arrays indexed by pre-order position:
+redesign flattens the tree into arrays indexed by pre-order position:
 
   parent[i], depth[i], tin[i]/tout[i] (Euler intervals for O(1) ancestor
   tests), ancestor_at_depth[i, d] (for vectorized LCA), requested[i],

@@ -1,6 +1,6 @@
 """A direct, scalar re-implementation of the reference's per-read matching
 algorithm (core match/FastqKMerMatcher.java:327-535 + tax/SmallTaxTree.java),
-used as the golden model to verify the vectorized TPU pipeline against.
+used as the golden model to verify the vectorized device pipeline against.
 
 Deliberately written as a line-by-line transcription of the *semantics*
 (rolling k-mers with bad-base skips, per-contig stats flush, vote counters,

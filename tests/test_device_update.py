@@ -1,7 +1,7 @@
 """Device-resident LCA update (db/build.py _DeviceUpdateEngine) must produce
 exactly the host path's table: same values, same kmers_moved. Runs on the CPU
-backend; on real hardware the DBUpdater enables it via the d2h bandwidth gate
-(ref role: DBGoal.java:75-110; VERDICT r3 item 6)."""
+backend; dbDeviceUpdate=auto takes this path whenever the table is non-empty
+(ref role: DBGoal.java:75-110)."""
 
 import numpy as np
 import pytest
@@ -86,3 +86,20 @@ def test_device_update_multiple_flushes(tree):
     host_tax = np.array([t_host.values[v] for v in t_host.value_idx])
     dev_tax = np.array([t_dev.values[v] for v in t_dev.value_idx])
     np.testing.assert_array_equal(host_tax, dev_tax)
+
+
+def test_auto_takes_device_engine(tree):
+    """dbDeviceUpdate=auto: the device path whenever the table is
+    non-empty; off keeps the host path; an empty table has no engine."""
+    rng = np.random.default_rng(9)
+    table = _table(rng, 256, ["11053"])
+    auto = DBUpdater(tree, table, set(), None, BuildOptions(k=31),
+                     device_update="auto")
+    assert auto._dev is not None
+    off = DBUpdater(tree, table, set(), None, BuildOptions(k=31),
+                    device_update="off")
+    assert off._dev is None
+    empty = KmerTable(31, np.zeros(0, np.uint64), np.zeros(0, np.int32),
+                      ["11053"])
+    assert DBUpdater(tree, empty, set(), None, BuildOptions(k=31),
+                     device_update="auto")._dev is None

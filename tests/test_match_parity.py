@@ -2,7 +2,7 @@
 scalar transcription of the reference matcher exactly — per-node statistics,
 per-read classifications, Kraken-style segments, and unique k-mer counts.
 
-This is the TPU analogue of the reference's matcher tests
+This is the batched analogue of the reference's matcher tests
 (core match/FastqKMerMatcherTest.java) plus its KrakenUniq byte-parity
 strategy (goals/refseq/ComprehensiveMatchTest.java), with the golden model
 playing the role of the reference binary.

@@ -175,3 +175,38 @@ def test_sharded_db_equals_single(tmp_path):
     s1 = {t: vars(c) for t, c in r1.taxid2stats.items()}
     ss = {t: vars(c) for t, c in rs.taxid2stats.items()}
     assert s1 == ss
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_auto_shard_threshold_from_device_memory():
+    """dbShard=auto shards above SHARD_MEMORY_FRACTION of the smallest
+    device's bytes_limit; an explicit dbShardMinBytes overrides it."""
+    from genestrip_tpu.parallel import mesh
+    devs = [_FakeDevice({"bytes_limit": 80 << 30}),
+            _FakeDevice({"bytes_limit": 40 << 30})]
+    limit = int((40 << 30) * mesh.SHARD_MEMORY_FRACTION)
+    assert mesh.auto_shard_min_bytes(devs) == limit
+    assert not mesh.should_shard_db("auto", limit, devs)
+    assert mesh.should_shard_db("auto", limit + 1, devs)
+    assert not mesh.should_shard_db("auto", limit + 1, devs,
+                                    min_bytes=limit + 1)
+    assert mesh.should_shard_db("on", 1, devs)
+    assert not mesh.should_shard_db("off", 1 << 40, devs)
+
+
+def test_auto_shard_replicates_without_memory_limit():
+    """A device that reports no memory limit (the CPU backend) makes auto
+    replicate at any table size; no memory size is assumed."""
+    from genestrip_tpu.parallel import mesh
+    for stats in (None, {}, {"bytes_in_use": 0}):
+        devs = [_FakeDevice({"bytes_limit": 80 << 30}), _FakeDevice(stats)]
+        assert mesh.auto_shard_min_bytes(devs) is None
+        assert not mesh.should_shard_db("auto", 1 << 40, devs)
+    assert not mesh.should_shard_db("auto", 1 << 40, jax.devices())

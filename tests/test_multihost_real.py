@@ -1,4 +1,4 @@
-"""REAL 2-process multi-host run (VERDICT r4 item 3): spawns
+"""REAL 2-process multi-host run: spawns
 scripts/launch_multihost.py, which jax.distributed.initialize()s two actual
 processes over a local coordinator, matches interleaved file shards, merges
 via the packed process_allgather, and asserts merged == single-process.

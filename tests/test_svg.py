@@ -2,7 +2,7 @@
 recomputed geometry — a renderer regression (indent arithmetic, connector
 placement, last-child shortening, dash threshold, longest-path marking,
 label format) fails these, unlike the old existence+substring check
-(VERDICT r4 item 7; ref geometry: match/TaxTreePainter.java:104-217,
+(ref geometry: match/TaxTreePainter.java:104-217,
 labels :338-364)."""
 
 import re
